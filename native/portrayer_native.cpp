@@ -3,11 +3,10 @@
 // The reference (sunjay/portrayer) is a pure-Rust program: its OBJ parsing
 // (tobj, src/primitive/mesh.rs:57-61), PNG codec (the `image` crate,
 // src/render.rs:165-223) and spatial-sort/partition machinery
-// (src/kdtree/leaf.rs) are native code.  These are the TPU framework's
-// native equivalents for the host side of the pipeline: scene ingest,
-// spatial ordering for the packed prim tables, and image output.  The
-// device compute path stays JAX/XLA/Pallas; Python binds these via ctypes
-// (portrayer_tpu/native.py) with pure-Python fallbacks.
+// (src/kdtree/leaf.rs) are native code.  These are this framework's
+// native equivalents for the host side of the pipeline: scene ingest and
+// image output.  The device compute path stays JAX/XLA; Python binds these
+// via ctypes (portrayer_tpu/native.py) with pure-Python fallbacks.
 //
 // Build: make -C native   (g++ -O2 -shared -fPIC, links zlib)
 
@@ -200,48 +199,6 @@ void pn_obj_fill(void* h, double* pos, double* uv, double* norm,
 }
 
 void pn_obj_free(void* h) { delete (ObjData*)h; }
-
-// ---------- Morton spatial order ----------
-// Bit-exact mirror of flatten._morton_order: 10-bit quantized centers,
-// 30-bit interleave, stable sort.
-
-static inline uint32_t part1by2(uint32_t x) {
-  x &= 0x3FFu;
-  x = (x | (x << 16)) & 0x30000FFu;
-  x = (x | (x << 8)) & 0x300F00Fu;
-  x = (x | (x << 4)) & 0x30C30C3u;
-  x = (x | (x << 2)) & 0x9249249u;
-  return x;
-}
-
-void pn_morton_order(const double* amin, const double* amax, int64_t n,
-                     int64_t* order) {
-  if (n <= 0) return;
-  double lo[3] = {1e300, 1e300, 1e300}, hi[3] = {-1e300, -1e300, -1e300};
-  std::vector<double> c((size_t)n * 3);
-  for (int64_t i = 0; i < n; i++)
-    for (int j = 0; j < 3; j++) {
-      double v = 0.5 * (amin[i * 3 + j] + amax[i * 3 + j]);
-      c[i * 3 + j] = v;
-      lo[j] = std::min(lo[j], v);
-      hi[j] = std::max(hi[j], v);
-    }
-  double span[3];
-  for (int j = 0; j < 3; j++) span[j] = std::max(hi[j] - lo[j], 1e-30);
-  std::vector<uint32_t> key((size_t)n);
-  for (int64_t i = 0; i < n; i++) {
-    uint32_t q[3];
-    for (int j = 0; j < 3; j++) {
-      double t = (c[i * 3 + j] - lo[j]) / span[j] * 1023.0;
-      t = std::min(std::max(t, 0.0), 1023.0);
-      q[j] = (uint32_t)t;  // trunc, like numpy astype
-    }
-    key[i] = part1by2(q[0]) | (part1by2(q[1]) << 1) | (part1by2(q[2]) << 2);
-  }
-  for (int64_t i = 0; i < n; i++) order[i] = i;
-  std::stable_sort(order, order + n,
-                   [&](int64_t a, int64_t b) { return key[a] < key[b]; });
-}
 
 // ---------- PNG encode (8-bit RGB, zlib) ----------
 // The reference writes PNGs through the `image` crate (render.rs:193-207);

@@ -1,6 +1,6 @@
-"""portrayer_tpu — a TPU-native re-implementation of the `portrayer`
-recursive ray tracer (reference: sunjay/portrayer) as a JAX/XLA/Pallas
-wavefront pipeline.
+"""portrayer_tpu — a re-implementation of the `portrayer` recursive ray
+tracer (reference: sunjay/portrayer) as a JAX/XLA wavefront pipeline for
+an accelerator (an NVIDIA H100).
 
 Feature parity with the reference library (SURVEY.md §2): analytic
 primitives (sphere/cube/plane/cylinder/cone), triangle meshes with flat and
@@ -8,8 +8,9 @@ smooth shading + OBJ loading, hierarchical scenes with instancing, the full
 Whitted lighting model (Blinn-Phong, shadows, mirror/glossy reflection,
 Snell/Schlick refraction), textures (image + procedural) and normal maps,
 point + parallelogram area lights with falloff, jittered supersampling,
-gamma-encoded PNG output — all executed as SoA wavefront batches on TPU,
-sharded over device meshes for multi-chip scaling, and differentiable.
+gamma-encoded PNG output — all executed as SoA wavefront batches on the
+device, sharded over device meshes for multi-card scaling, and
+differentiable.
 """
 
 from .config import (

@@ -4,8 +4,8 @@ The reference (sunjay/portrayer) exposes its knobs through env vars
 (``SAMPLES`` — src/render.rs:107-113, ``KD_DEPTH`` — src/kdtree/kdscene.rs:36,
 ``KD_MESH_DEPTH`` — src/kdtree/kdmesh.rs:51) and cargo features
 (``kdtree``/``flat_scene`` — Cargo.toml:29-36).  Here the same knobs live in a
-single dataclass that is threaded through the renderer, plus TPU-specific
-controls (dtype, tile shape, wavefront queue capacity, device mesh).
+single dataclass that is threaded through the renderer, plus controls of
+the device pipeline (dtype, tile shape, wavefront queue capacity, sweep).
 """
 
 from __future__ import annotations
@@ -33,6 +33,9 @@ WINDOW_GLASS_REFRACTION_INDEX = 1.51
 OPTICAL_GLASS_REFRACTION_INDEX = 1.92
 DIAMOND_REFRACTION_INDEX = 2.42
 
+# Scene intersection sweeps (RenderConfig.accel).
+ACCELS = ("flat", "beam")
+
 
 def _env_samples(default: int = 100) -> int:
     """SAMPLES env var semantics of the reference: positive int or default."""
@@ -58,13 +61,12 @@ class RenderConfig:
     # Maximum recursion depth for reflect/refract rays.
     max_depth: int = MAX_RECURSION_DEPTH
 
-    # Compute dtype for the ray pipeline.  float32 is the TPU-native choice;
+    # Compute dtype for the ray pipeline.  float32 is the production choice;
     # float64 is available (on CPU) for high-precision verification runs
     # against the f64 reference (SURVEY §7(d)) — it requires JAX's x64 mode
     # (run under `with jax.enable_x64(True):` or set JAX_ENABLE_X64=1),
     # which __post_init__ enforces so the mode can never silently truncate
-    # back to f32.  Use accel="flat" with it: the Pallas kernel is
-    # f32-only (it falls through to the XLA sweeps on f64).
+    # back to f32.
     dtype: jnp.dtype = jnp.float32
 
     # Absolute epsilon for t-range starts (parity with the reference).
@@ -142,37 +144,13 @@ class RenderConfig:
     # a Scene (not pre-flattened tables).
     render_bounding_volumes: bool = False
 
-    # Scene acceleration: "flat" (brute-force XLA sweep — the only
-    # differentiable path), "beam" (segmented XLA beam sweep), or "pallas"
-    # (the production Pallas VMEM sweep kernel with Morton-chunk culling —
-    # the TPU-native analogue of the reference's kdtree cargo feature).
-    accel: str = "pallas"
-
-    # Pallas sweep parameters: rays per kernel block, chunks (x128 prims)
-    # per VMEM slab, and interpreter-mode override (None = auto: interpret
-    # everywhere except real TPU backends).
-    pallas_block: int = 256
-    pallas_slab_chunks: int = 256
-    pallas_interpret: Optional[bool] = None
-
-    # Rays per culling sub-block: each SUB-ray group of a block gets its
-    # OWN compacted candidate list, so a sub-block sweeps only the chunks
-    # its rays cross (the per-ray ordered-descent economics of the
-    # reference kd-tree, src/kdtree/node.rs:66-203, at SUB-ray
-    # granularity).  Must divide pallas_block; equal to pallas_block
-    # (the default) = one shared list per block.  MEASURED on castle:
-    # coherent 16x16-tile blocks have near-identical crossing sets across
-    # sub-blocks (block union 9.1 chunks vs per-ray 8.5), so finer lists
-    # only multiply the per-visit fixed costs (12-21 table-row loads that
-    # do not shrink with SUB) — 24.6 -> 51 ms at SUB=32.  Kept as a knob
-    # for incoherent workloads; see docs/PERF.md round-4 ledger.
-    pallas_subblock: int = 256
-
-    # Chunks evaluated per sweep-loop iteration.  With count-based loop
-    # control (the cond is one scalar compare) unrolling only adds
-    # rounded-up extra evals — measured monotonically worse: 20.2 ms at
-    # 1 vs 37.8 at 8 on the castle sweep.  0 = auto (1).
-    pallas_unroll: int = 0
+    # Scene intersection sweep: "flat" (brute-force XLA sweep over every
+    # primitive — the plain reference) or "beam" (the ordered warp-beam
+    # XLA sweep of ops/beam.py, the analogue of the reference's kdtree
+    # cargo feature; scenes under beam_min_prims primitives run the flat
+    # sweep).  Both are differentiable.  The default is the faster of the
+    # two end to end on an H100 (PERF.md).
+    accel: str = "beam"
 
     # Adaptive bounce-round capacity variants: each round lax.switches
     # into the smallest queue head-slice (capacity//div, block-aligned)
@@ -181,12 +159,10 @@ class RenderConfig:
     queue_slice_divs: Tuple[int, ...] = (16, 4, 1)
 
     # Bounce rounds at or above this lane count run under jax.checkpoint
-    # (backward replays shading instead of keeping the lane-padded
-    # shading temps as residuals — at 262k lanes those blow past HBM).
-    # 0 (default) = every round.  Exempting small rounds was tried and
-    # went 10GB past HBM: un-remat'd texture gathers inside the tail
-    # scan make XLA stack the u8 atlas per iteration at 42.7x padding
-    # (u8[13.6M,3] x 8 iters = 13GB on castle).
+    # (backward replays shading instead of keeping the shading temps as
+    # residuals).  0 (default) = every round.  The default was chosen on
+    # an earlier accelerator, whose padded layout of [R,3] arrays made
+    # residuals the memory limit; it is not measured on the GPU yet.
     remat_min_lanes: int = 0
 
     # Python-unroll the uniform-capacity bounce-round tail instead of
@@ -212,6 +188,9 @@ class RenderConfig:
                     "arrays silently truncate to float32: wrap the run in "
                     "`with jax.enable_x64(True):` (or set JAX_ENABLE_X64=1)."
                 )
+        if self.accel not in ACCELS:
+            raise ValueError(
+                f"unknown accel {self.accel!r}; expected one of {ACCELS}")
         if self.queue_caps is not None and len(self.queue_caps) == 0:
             raise ValueError("queue_caps must be None or non-empty")
 

@@ -1,4 +1,4 @@
-"""Numerical-safety checks — the TPU-side answer to the reference's
+"""Numerical-safety checks — the device-side answer to the reference's
 race/panic story (SURVEY §5): the reference leans on Rust ownership and
 rayon's panic_fuse (src/render.rs:36,130); an XLA pipeline is SPMD-pure, so
 the failure modes that remain are numerical (NaN/Inf radiance, divergent
@@ -20,8 +20,8 @@ def checked_trace(key, o, d, pix, bg, n_pixels, st, cfg: RenderConfig):
     """Run trace() under checkify float checks (NaN/Inf anywhere in the
     bounce loop).  Returns (err, acc); call err.throw() to raise.
 
-    Uses the flat sweep: checkify cannot instrument the Pallas kernel or
-    the beam path's dynamic-trip while_loop.
+    Uses the flat sweep: checkify cannot instrument the beam path's
+    dynamic-trip while_loop.
     """
     import dataclasses
 
@@ -46,8 +46,8 @@ def queue_overflow_fraction(
     (the round-4 castle bug: caps measured on a crop silently dropped 20%
     of full-frame energy to background).  Full-frame coverage matters —
     a crop can miss exactly the geometry (e.g. water) that keeps rays
-    alive.  The accel matrix and self-golden generator assert this stays
-    ~0 for every scene they touch."""
+    alive.  The self-golden generator asserts this stays ~0 for every
+    scene it pins."""
     import numpy as np
 
     from .camera import Camera

@@ -1,4 +1,4 @@
-"""Vector/matrix math for the TPU renderer.
+"""Vector/matrix math for the renderer.
 
 The reference keeps scalar f64 vek types (src/math.rs:22-33).  Here everything
 is SoA: points/directions are arrays of shape [..., 3], affine transforms are
@@ -44,8 +44,8 @@ def norm(v, eps=0.0):
     masked-out lane's zero cotangent into 0 * inf = NaN).
 
     The clamp is floored at the smallest *normal* float32: eps = 1e-30
-    squares to 1e-60 which underflows to 0.0 in f32 (and TPUs flush
-    subnormals), silently disabling the guard — normalize(zero_vector)
+    squares to 1e-60 which underflows to 0.0 in f32 (and accelerators may
+    flush subnormals), silently disabling the guard — normalize(zero_vector)
     then returns 0/0 = NaN.  This was the round-2 flagship NaN: castle
     triangles with degenerate UVs (uva == uvb) produce an exactly-zero
     bitangent, and the unguarded normalize poisoned the TBN and every
@@ -61,10 +61,10 @@ def normalize(v, eps=0.0):
 
 
 # NOTE: these small transforms deliberately use explicit elementwise
-# arithmetic instead of einsum/dot.  On TPU, dot-general defaults to
-# bfloat16 MXU passes (~0.4% error) which manifests as severe shadow acne;
-# elementwise mul+add runs on the VPU at full float32 and is just as fast
-# at 3x3/3x4 sizes.
+# arithmetic instead of einsum/dot.  On an H100 an f32 dot may run in TF32
+# (about three decimal digits), which manifests as shadow acne; elementwise
+# mul+add stays in full float32, and at 3x3/3x4 sizes a matrix unit has
+# nothing to gain.
 
 def transform_point(m34, p):
     """Apply affine [...,3,4] to points [...,3]."""
@@ -218,7 +218,7 @@ def smallest_root_in_range(a, b, c, t_min, t_max):
 # Quartic solver — the analogue of the reference's Quartic wrapper over the
 # roots crate (src/math.rs:126-133), used by the torus (primitive/torus.rs).
 # Ferrari's method via the resolvent cubic, followed by Newton polish so the
-# roots are usable in float32 on TPU.
+# roots are usable in float32.
 # ---------------------------------------------------------------------------
 
 def _solve_cubic_largest(a2, a1, a0):

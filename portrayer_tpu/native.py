@@ -1,11 +1,11 @@
 """ctypes bindings for the native host-runtime library (native/).
 
 The reference's host runtime is native Rust (tobj OBJ parsing, the `image`
-PNG codec, kd-tree partitioning).  Here the equivalents live in
+PNG codec).  Here the equivalents live in
 native/portrayer_native.cpp; this module builds (once, via make) and binds
 them.  Every entry point has a pure-Python fallback at its call site, so
-the framework works without a toolchain; set PORTRAYER_NO_NATIVE=1 to
-force the fallbacks.
+the framework works without a toolchain or zlib headers; set
+PORTRAYER_NO_NATIVE=1 to force the fallbacks.
 """
 
 from __future__ import annotations
@@ -63,9 +63,6 @@ def _load():
     lib.pn_obj_free.restype = None
     lib.pn_obj_free.argtypes = [c_p]
 
-    lib.pn_morton_order.restype = None
-    lib.pn_morton_order.argtypes = [dptr, dptr, c_i64, iptr]
-
     lib.pn_png_encode.restype = c_i64
     lib.pn_png_encode.argtypes = [
         u8ptr, c_i32, c_i32, ctypes.POINTER(ctypes.c_void_p),
@@ -111,21 +108,6 @@ def obj_load(path) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndar
         )
     finally:
         lib.pn_obj_free(h)
-
-
-def morton_order(amin: np.ndarray, amax: np.ndarray) -> Optional[np.ndarray]:
-    """Stable Morton-code order of AABB centers (native); None = fallback."""
-    lib = _load()
-    if lib is None:
-        return None
-    n = amin.shape[0]
-    order = np.empty(n, np.int64)
-    lib.pn_morton_order(
-        np.ascontiguousarray(amin, np.float64),
-        np.ascontiguousarray(amax, np.float64),
-        n, order,
-    )
-    return order
 
 
 def png_encode(rgb: np.ndarray) -> Optional[bytes]:

@@ -1,8 +1,9 @@
-"""Ordered beam-sweep acceleration — the TPU-native replacement for the
-reference's kd-tree (src/kdtree/*, SURVEY §7 step 9).
+"""Ordered beam-sweep acceleration — the data-parallel replacement for the
+reference's kd-tree (src/kdtree/*, SURVEY §7 step 9), written in plain XLA.
 
-Why not a kd-tree walk: per-ray stack traversal is divergent scalar control
-flow and random gathers — the worst case for a vector machine.  Instead:
+Why not a kd-tree walk: per-ray stack traversal is divergent control flow
+and random gathers, which plain XLA array code cannot express per ray
+(a per-ray traversal kernel is an open item, ROADMAP).  Instead:
 
   * Rays are grouped into *warps* (contiguous batches — coherent for
     primary and shadow rays).  Each warp carries interval bounds on its

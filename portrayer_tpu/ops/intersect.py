@@ -1,5 +1,5 @@
-"""Vectorized scene intersection — the TPU replacement for the reference's
-recursive `RayCast`/`RayHit` dispatch (src/ray.rs:39-99).
+"""Vectorized scene intersection — the data-parallel replacement for the
+reference's recursive `RayCast`/`RayHit` dispatch (src/ray.rs:39-99).
 
 Design (SURVEY §7): rays are SoA batches [R,3]; the scene is flat tables
 grouped by primitive kind.  For each kind we sweep node chunks with a
@@ -20,7 +20,6 @@ All candidate functions implement the reference's exact selection semantics:
 
 from __future__ import annotations
 
-from functools import partial
 from typing import NamedTuple
 
 import jax
@@ -313,8 +312,9 @@ def _pad_reshape(x, chunk, fill=0):
 def _local_rays(inv34, o, d):
     """Transform rays [R,3] into the local frames of nodes [C,3,4] -> [R,C,3].
 
-    Written as broadcasted mul+add (VPU, full f32) rather than einsum: TPU
-    dot-general would run at bfloat16 MXU precision and cause shadow acne.
+    Written as broadcasted mul+add (full f32) rather than einsum: an f32
+    dot may run at reduced precision on the accelerator's matrix units
+    (TF32 on the GPU), which shows up as shadow acne (see math3d).
     """
     rot = inv34[None, :, :, :3]                       # [1,C,3,3]
     lo = jnp.sum(rot * o[:, None, None, :], axis=-1) + inv34[None, :, :, 3]
@@ -324,7 +324,7 @@ def _local_rays(inv34, o, d):
 
 def intersect_scene(
     o, d, t_min, t_max, st: SceneTables, cfg: RenderConfig,
-    active=None, src_node=None, src_tri=None, exact_t=True, shadow=None,
+    active=None, src_node=None, src_tri=None,
 ) -> Hit:
     """Nearest hit for a batch of world-space rays [R,3].
 
@@ -337,34 +337,18 @@ def intersect_scene(
     which suppresses float32 self-intersection acne on heavily scaled
     primitives without disturbing any other geometry.
     """
-    # Dispatch to an accelerated sweep (the analogue of the reference's
-    # kdtree feature flag).  Both accelerated paths use dynamic-trip
-    # while_loops, so their inputs are stop_gradient-ed: they act as pure
-    # *selection* oracles (which node/tri is nearest).  Differentiability is
-    # restored downstream by hit_detail's reattached-t recompute, so every
-    # accel mode supports reverse-mode AD.
-    if cfg.accel == "pallas" and o.dtype == jnp.float32:
-        # Only take the Mosaic kernel on real TPU backends (or when
-        # interpret mode is explicitly requested, e.g. by CPU equivalence
-        # tests); elsewhere fall through to the XLA beam sweep, which has
-        # identical semantics.
-        if jax.default_backend() == "tpu" or cfg.pallas_interpret:
-            from .pallas_intersect import intersect_scene_pallas
+    # The beam sweep (the analogue of the reference's kdtree feature flag)
+    # uses dynamic-trip while_loops, so its inputs are stop_gradient-ed: it
+    # acts as a pure *selection* oracle (which node/tri is nearest).
+    # Differentiability is restored downstream by hit_detail's reattached-t
+    # recompute, so both sweeps support reverse-mode AD.
+    if cfg.accel == "beam" and st.n_nodes + st.n_pairs >= cfg.beam_min_prims:
+        from .beam import intersect_scene_beam
 
-            return intersect_scene_pallas(
-                *jax.lax.stop_gradient((o, d, t_min, t_max, st)), cfg,
-                active=active, src_node=src_node, src_tri=src_tri,
-                exact_t=exact_t, shadow=shadow,
-            )
-    if cfg.accel in ("beam", "pallas"):
-        n_prims = st.n_nodes + st.n_pairs
-        if n_prims >= cfg.beam_min_prims:
-            from .beam import intersect_scene_beam
-
-            return intersect_scene_beam(
-                *jax.lax.stop_gradient((o, d, t_min, t_max, st)), cfg,
-                active=active, src_node=src_node, src_tri=src_tri,
-            )
+        return intersect_scene_beam(
+            *jax.lax.stop_gradient((o, d, t_min, t_max, st)), cfg,
+            active=active, src_node=src_node, src_tri=src_tri,
+        )
 
     R = o.shape[0]
     dtype = o.dtype
@@ -469,17 +453,7 @@ def occluded(
 ):
     """Any-hit query for shadow rays.  The reference casts the full nearest-hit
     query with an unbounded range (material.rs:174-179) — occlusion therefore
-    counts objects even *beyond* the light, which we preserve.  The Pallas
-    path answers this with a cheaper first-hit sweep."""
-    if cfg.accel == "pallas" and o.dtype == jnp.float32:
-        if jax.default_backend() == "tpu" or cfg.pallas_interpret:
-            from .pallas_intersect import intersect_scene_pallas
-
-            return intersect_scene_pallas(
-                *jax.lax.stop_gradient((o, d, t_min, t_max, st)), cfg,
-                active=active,
-                src_node=src_node, src_tri=src_tri, any_hit=True,
-            ).hit
+    counts objects even *beyond* the light, which we preserve."""
     return intersect_scene(
         o, d, t_min, t_max, st, cfg,
         active=active, src_node=src_node, src_tri=src_tri,
@@ -530,8 +504,8 @@ def _cube_detail(o, d, t_min, t_max, p, eps, dtype):
     _, face = _cube_face_fold(o, d, t_min, t_max, eps)
     face = jnp.maximum(face, 0)
     R = p.shape[0]
-    # Branchless 6-way select (static per-face constants; table gathers on
-    # TPU cost ~ms per 256k rays, elementwise selects are ~free).
+    # Branchless 6-way select over static per-face constants instead of a
+    # per-ray table gather.
     n = jnp.zeros((R, 3), dtype)
     u = jnp.zeros((R,), dtype)
     v = jnp.zeros((R,), dtype)
@@ -672,9 +646,8 @@ def _mesh_detail(lo, ld, trec, t_min, t_max, dtype):
 def _winner_candidate_t(lo, ld, ray_kind, rec, trec, t_min, t_max, eps,
                         present):
     """Per-ray candidate t of each ray's (already selected) winning
-    primitive, recomputed in local space from the scene tables [R]-sized.
-    Shared by hit_detail's differentiable reattach and the Pallas sweep's
-    exact-t epilogue (the kernel selects with lane-tagged quantized keys)."""
+    primitive, recomputed in local space from the scene tables [R]-sized
+    (hit_detail's differentiable reattach and winner_t)."""
     t_re = jnp.full(lo.shape[:-1], INF, lo.dtype)
     for kind in sorted(present):
         if kind == MESH:
@@ -815,12 +788,10 @@ def hit_detail(
     recomputed differentiably from the scene tables and becomes the value
     used downstream: the sweep only *selects* (node, tri) and its t acts
     as a detached fallback when float asymmetry loses the recomputed root.
-    This detached-selection / reattached-value construction makes every
-    accelerated sweep (Pallas kernel, beam) differentiable at O(R) extra
-    cost, spares reverse mode from transposing the brute-force [R x N]
-    sweep in the flat path — and it means sweeps may return *quantized*
-    t keys (the Pallas kernel's lane-tagged packing) without any loss:
-    the recompute restores full f32 precision here.
+    This detached-selection / reattached-value construction makes the
+    accelerated beam sweep differentiable at O(R) extra cost and spares
+    reverse mode from transposing the brute-force [R x N] sweep in the
+    flat path.
     """
     R = o.shape[0]
     dtype = o.dtype

@@ -57,9 +57,9 @@ def sample_atlas(data, meta, tex_ix, uv, srgb: bool = True):
     (src/texture.rs:104-141): x = trunc(u*(w-1)) rem_euclid w.
 
     u8 texels decode arithmetically (c/255 then c^2.2 for sRGB,
-    texture.rs:162-168) — a pow is cheaper on the VPU than a second
-    [R,3]-indexed LUT gather, and the atlas stays at 1/12th the HBM of
-    prebaked f32 texels."""
+    texture.rs:162-168) — a pow instead of a second [R,3]-indexed LUT
+    gather, and the atlas stays at 1/12th the device memory of prebaked
+    f32 texels."""
     m = meta[jnp.maximum(tex_ix, 0)]          # [R,3] (offset, w, h)
     off, w, h = m[..., 0], m[..., 1], m[..., 2]
     x = jnp.trunc(uv[..., 0] * (w - 1).astype(uv.dtype)).astype(jnp.int32)

@@ -26,13 +26,13 @@ from .intersect import intersect_scene, hit_detail, Hit
 from .shade import shade_pre
 
 # Each bounce round runs under jax.checkpoint saving ONLY the sweep
-# oracles (nearest-hit ids + occlusion verdicts): the backward pass then
-# replays shading/accumulation from (queue, hit) WITHOUT re-dispatching
-# any accelerated sweep, and none of the shading intermediates (det.nmt
-# [R,3,3], per-light [L,R,3] contribs, ...) survive as residuals.  Those
-# residuals are what blew fwd+bwd past HBM at honest queue capacities:
-# XLA stores [R,3]-shaped temps lane-padded (T(8,128) -> 42.7x the data)
-# so one round's shading state is ~GBs at 262k rays.
+# oracles (nearest-hit ids + occlusion verdicts) and the named winner-record
+# gathers ("shade_tmp"): the backward pass then replays shading and
+# accumulation from (queue, hit) WITHOUT re-dispatching any sweep, and none
+# of the other shading intermediates (det.nmt [R,3,3], per-light [L,R,3]
+# contribs, ...) survive as residuals.  The policy was chosen on an earlier
+# accelerator whose padded [R,3] layout made those residuals the memory
+# limit; on the GPU it is not measured yet (PERF.md).
 _REMAT_POLICY = jax.checkpoint_policies.save_only_these_names(
     "sweep_oracle", "shade_tmp")
 
@@ -60,8 +60,7 @@ class _Queue(NamedTuple):
 
 def _acc_add(acc, pix, x, spp_c: int):
     """acc[pix] += x.  When the queue is pixel-major with spp_c samples per
-    pixel (primary rays), a reshape+sum replaces the scatter-add — TPU
-    scatters cost ~ms per 256k rays, the reshape-sum is ~free."""
+    pixel (primary rays), a reshape+sum replaces the scatter-add."""
     if spp_c:
         return acc + x.reshape(acc.shape[0], spp_c, x.shape[-1]).sum(axis=1)
     return acc.at[pix].add(x)
@@ -74,8 +73,8 @@ class TraceStats(NamedTuple):
     dropped_w: scalar — total live throughput terminated by queue-capacity
     overflow across all rounds, as a FRACTION of the primary ray count.
     Stale scene queue_caps hints fail loudly through this counter: the
-    castle overflow test (tests/test_render.py), tools/accel_matrix.py and
-    tools/gen_self_goldens.py all assert it stays ~0 (full-frame, via
+    castle overflow test (tests/test_render.py) and
+    tools/gen_self_goldens.py assert it stays ~0 (full-frame, via
     debug.queue_overflow_fraction)."""
     live: jnp.ndarray
     dropped_w: jnp.ndarray
@@ -144,7 +143,7 @@ def _round_shade(
     w_refl = w_hit * children.refl_mult
     w_refr = w_hit * children.refr_mult
 
-    # One combined accumulation per round (scatters are ~ms-level on TPU):
+    # One combined accumulation per round (one scatter instead of four):
     # background for misses + soft-silhouette complement + the ambient
     # base + the depth-limit cut-off where every child evaluates to the
     # background; per-light terms wait for the fused shadow verdicts.
@@ -180,11 +179,11 @@ def _round_shade(
 
 
 def _nearest(q: _Queue, st, cfg):
-    """Nearest-hit launch for a queue (exact_t=False: hit_detail's
-    reattach recomputes the exact differentiable t)."""
+    """Nearest-hit launch for a queue (hit_detail's reattach recomputes
+    the exact differentiable t)."""
     return _oracle(intersect_scene(
         q.o, q.d, q.t_min, jnp.inf, st, cfg, active=q.w > 0.0,
-        src_node=q.src_node, src_tri=q.src_tri, exact_t=False,
+        src_node=q.src_node, src_tri=q.src_tri,
     ))
 
 
@@ -193,9 +192,8 @@ def _apply_shadows(shadow: _Shadow, acc, st, cfg, spp_c: int):
     and accumulate the lit contributions.
 
     (A fused variant — shadow lanes riding in the next round's nearest
-    launch with a per-lane shadow-mode flag — was tried and measured
-    WORSE on castle: depth-10 136 -> 160 ms.  The separate any-hit sweep
-    beats nearest-mode shadow lanes by more than a launch costs.)"""
+    launch with a per-lane shadow-mode flag — was slower on the castle on
+    an earlier accelerator; it is not measured on the GPU.)"""
     from .intersect import occluded
 
     L = shadow.dirs.shape[0]

@@ -1,16 +1,16 @@
 """Multi-host runtime: process-per-host SPMD over a global device mesh.
 
 The reference is a single shared-memory process (rayon threads over pixels,
-src/render.rs:127-150).  Scaling past one host on TPU means one Python
-process per host, `jax.distributed.initialize` to form the global runtime,
-and a mesh spanning every chip in the slice: XLA then lowers the psum in
-`trace_sharded` onto ICI within a slice and DCN across slices — no
+src/render.rs:127-150).  Scaling past one host means one Python process per
+host, `jax.distributed.initialize` to form the global runtime, and a mesh
+spanning every card of the job: XLA hands the psum in `trace_sharded` to
+NCCL (NVLink between the cards of a host, the network between hosts) — no
 hand-written communication backend (SURVEY §5 "distributed communication
 backend").
 
 Design: rays are sharded over the single global mesh axis exactly as in the
 single-host path (parallel/sharding.py); the scene tables are replicated on
-every chip; each process feeds only its addressable shard of the ray grid
+every card; each process feeds only its addressable shard of the ray grid
 (`make_global_rays`), and the replicated framebuffer psum means host 0 can
 read the full image locally (`fetch_replicated`) — the "tile gather to host
 0" of SURVEY §5 costs one device->host copy, no extra collective.
@@ -43,9 +43,8 @@ def initialize(
 
     Arguments default to the standard env vars (JAX_COORDINATOR_ADDRESS,
     JAX_NUM_PROCESSES, JAX_PROCESS_ID) so launchers can configure hosts
-    without code changes; on managed platforms (GKE/Cloud TPU) with none
-    set, jax.distributed.initialize autodetects.  A plain single-process
-    run (nothing configured) is a no-op."""
+    without code changes.  A plain single-process run (nothing configured)
+    is a no-op."""
     coordinator_address = coordinator_address or os.environ.get(
         "JAX_COORDINATOR_ADDRESS")
     if num_processes is None and "JAX_NUM_PROCESSES" in os.environ:
@@ -63,11 +62,10 @@ def initialize(
 
 
 def global_mesh(axis_name: str = RAY_AXIS) -> Mesh:
-    """1-D mesh over every chip in the job (all processes).
-
-    jax.devices() orders devices ICI-neighbourly within a host/slice, so a
-    blocked 1-D ray sharding keeps the psum's reduce-scatter phase on ICI
-    and only the final combine on DCN."""
+    """1-D mesh over every card in the job (all processes), in
+    jax.devices() order.  The cards of one host are joined all to all by
+    NVLink, so the mesh follows the algorithm alone: a blocked 1-D ray
+    sharding whose only collective is the framebuffer psum."""
     return Mesh(np.array(jax.devices()), (axis_name,))
 
 
@@ -108,7 +106,7 @@ def make_global_rays(mesh: Mesh, make_shard, R: int, feature_dims=(3, 3)):
 
 def fetch_replicated(x) -> np.ndarray:
     """Read a fully-replicated global array on this host (host-0 gather:
-    the psum already placed the full framebuffer on every chip)."""
+    the psum already placed the full framebuffer on every card)."""
     return np.asarray(jax.device_get(x.addressable_data(0)))
 
 

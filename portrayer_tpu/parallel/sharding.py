@@ -1,11 +1,11 @@
-"""Multi-chip execution: rays sharded over a device mesh, scene replicated.
+"""Multi-card execution: rays sharded over a device mesh, scene replicated.
 
 The reference parallelizes with a rayon work-stealing pool over pixels
-(src/render.rs:127-150) in one shared-memory process.  The TPU-native
+(src/render.rs:127-150) in one shared-memory process.  The device
 equivalent (SURVEY §2 parallelism table) is SPMD data parallelism over the
-ray/sample grid: each chip traces a shard of the rays against a replicated
+ray/sample grid: each card traces a shard of the rays against a replicated
 scene table, accumulates a partial framebuffer, and a `psum` over the mesh
-axis combines tiles — the only cross-chip communication in the forward
+axis combines tiles — the only cross-card communication in the forward
 pass.  The backward pass (differentiable rendering) reuses the same psum
 for gradient all-reduce via shard_map's AD transpose.
 """
@@ -20,13 +20,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-# jax.experimental.shard_map is deprecated (removed after jax 0.8); the
-# public jax.shard_map is the same transform.  Keep the fallback so the
-# package still imports on older jax.
-try:
-    from jax import shard_map
-except ImportError:  # pragma: no cover - jax < 0.6
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from ..config import RenderConfig
 from ..scene.flatten import SceneTables
@@ -53,18 +47,12 @@ def make_mesh(n_devices: Optional[int] = None, axis_name: str = RAY_AXIS) -> Mes
 
 def trace_sharded(
     mesh: Mesh, key, o, d, pix, bg, n_pixels: int,
-    st: SceneTables, cfg: RenderConfig, w0=None, reduce: bool = True,
+    st: SceneTables, cfg: RenderConfig, w0=None,
 ):
     """Trace rays [R,3] sharded over the mesh's ray axis.
 
     R must be divisible by the mesh size.  Returns the replicated
-    framebuffer accumulation [n_pixels, 3] (sum over all rays).
-
-    reduce=False skips the cross-device psum and returns the PER-SHARD
-    partial framebuffers [n_devices, n_pixels, 3] instead — the identical
-    compute graph minus the collective, which is how the bench isolates
-    communication/replication overhead from trace time (the scaling-
-    efficiency proxy on a virtual mesh)."""
+    framebuffer accumulation [n_pixels, 3] (sum over all rays)."""
     axis = mesh.axis_names[0]
     st_specs = jax.tree_util.tree_map(lambda _: P(), st)
     if w0 is None:
@@ -74,27 +62,22 @@ def trace_sharded(
         # Decorrelate per-shard sampling.
         key = jax.random.fold_in(key, jax.lax.axis_index(axis))
         acc = trace(key, o, d, pix, bg, n_pixels, st, cfg, w0=w0)
-        if reduce:
-            return jax.lax.psum(acc, axis)
-        return acc[None]
+        return jax.lax.psum(acc, axis)
 
-    kwargs = dict(
-        mesh=mesh,
-        in_specs=(P(), P(axis), P(axis), P(axis), P(), P(axis), st_specs),
-        out_specs=P() if reduce else P(axis),
-    )
     # Disable the replication/varying-axis checker: the wavefront loop's
     # scan carries start replicated and become per-shard varying, which the
     # static checker can't express without pcasts sprinkled everywhere.
-    try:
-        sharded = shard_map(fwd, check_vma=False, **kwargs)
-    except TypeError:
-        sharded = shard_map(fwd, check_rep=False, **kwargs)
+    sharded = shard_map(
+        fwd, mesh=mesh,
+        in_specs=(P(), P(axis), P(axis), P(axis), P(), P(axis), st_specs),
+        out_specs=P(), check_vma=False,
+    )
     # Eager calls need a jit wrapper: the bounce rounds run under
     # jax.checkpoint, which shard_map cannot evaluate eagerly.  When
-    # already inside a trace the wrapper must be SKIPPED — the nested
-    # jit becomes a closed_call boundary in the AD while-loops and cost
-    # ~3x on castle fwd+bwd (measured 70 -> 195 ms).
+    # already inside a trace the wrapper is SKIPPED — the nested jit
+    # becomes a closed_call boundary in the AD while-loops, which made
+    # castle fwd+bwd ~3x slower on an earlier accelerator (not measured
+    # on the GPU).
     if isinstance(key, jax.core.Tracer):
         return sharded(key, o, d, pix, bg, w0, st)
     return jax.jit(sharded)(key, o, d, pix, bg, w0, st)
@@ -136,23 +119,39 @@ def render_tiles_sharded(
 ):
     """Render a whole frame with rays data-parallel over the device mesh.
 
-    The multi-chip form of the reference's rayon pixel parallelism
-    (src/render.rs:127-150): every chip traces an equal shard of the
+    The multi-card form of the reference's rayon pixel parallelism
+    (src/render.rs:127-150): every card traces an equal shard of the
     (pixel x sample) ray grid against the replicated scene tables; one
-    psum combines the per-chip framebuffers.  Returns the linear
+    psum combines the per-card framebuffers.  Returns the linear
     mean-radiance image [H,W,3] (numpy).
     """
-    import numpy as np
+    width, height = size
+    spp = cfg.resolved_samples()
+    key = jax.random.PRNGKey(cfg.seed) if key is None else key
+    o, d, pix, bg, w0 = frame_rays(
+        camera, size, background, cfg, mesh.devices.size, key)
+    acc = trace_sharded(
+        mesh, jax.random.fold_in(key, 1), o, d, pix, bg, width * height,
+        st, cfg, w0=w0,
+    )
+    img = np.asarray(acc, np.float64).reshape(height, width, 3) / spp
+    return img
+
+
+def frame_rays(camera, size, background, cfg: RenderConfig, n_dev: int, key):
+    """The jittered (pixel x sample) primary rays of a whole frame, pixel
+    major, padded with zero-throughput rays to a multiple of `n_dev`.
+
+    Returns (o, d, pix, bg, w0), w0 the per-ray throughput (0 on
+    padding).  The jitter is drawn from fold_in(key, 0)."""
     from ..camera import Camera
 
     width, height = size
-    n_dev = mesh.devices.size
     cam = Camera(camera, (width, height), dtype=cfg.dtype)
     spp = cfg.resolved_samples()
     P_ = width * height
     R = P_ * spp
     pad = (-R) % n_dev
-    key = jax.random.PRNGKey(cfg.seed) if key is None else key
 
     ys, xs = np.mgrid[0:height, 0:width]
     px = jnp.asarray(np.repeat(xs.reshape(-1), spp), cfg.dtype)
@@ -172,11 +171,6 @@ def render_tiles_sharded(
         o = jnp.pad(o, ((0, pad), (0, 0)))
         d = jnp.pad(d, ((0, pad), (0, 0)), constant_values=1.0)
         pix = jnp.pad(pix, (0, pad))
-    acc = trace_sharded(
-        mesh, jax.random.fold_in(key, 1), o, d, pix, bg, P_, st, cfg,
-        w0=None if not pad else jnp.concatenate(
-            [jnp.ones((R,), cfg.dtype), jnp.zeros((pad,), cfg.dtype)]
-        ),
-    )
-    img = np.asarray(acc, np.float64).reshape(height, width, 3) / spp
-    return img
+    w0 = jnp.concatenate(
+        [jnp.ones((R,), cfg.dtype), jnp.zeros((pad,), cfg.dtype)])
+    return o, d, pix, bg, w0

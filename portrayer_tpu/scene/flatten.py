@@ -18,8 +18,8 @@ import dataclasses
 from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
+import jax
 import jax.numpy as jnp
-from flax import struct
 
 from .. import math3d as m3
 from .node import Scene, SceneNode, Sphere, Plane, Cube, Cylinder, Cone, Torus
@@ -30,350 +30,14 @@ from .texture import Texture, ImageTexture, NormalMap
 SPHERE, PLANE, CUBE, CYLINDER, CONE, MESH, TORUS = range(7)
 KIND_NAMES = ("sphere", "plane", "cube", "cylinder", "cone", "mesh", "torus")
 
-# Specialized *packed* kinds for the Pallas sweep (node kinds stay 0..6;
-# these only appear in PackedPrims.chunk_kind / candidate ids).  They carry
-# precomputed world-space parameters so the kernel skips the 36-op
-# world->local affine transform per (ray, prim):
-#   SPHERE_W — spheres under uniform-similarity transforms: the local unit
-#     sphere is a world sphere (center, radius); the quadratic has a=1 for
-#     normalized directions.
-#   AABOX — cubes whose world edges are axis-aligned (the common case: the
-#     reference scenes build walls/floors with scaled()+translated() only):
-#     one slab test replaces the 6-face plane fold (cube.rs:70-82) with
-#     identical accepted-hit semantics (entry face in range, else exit).
-PACKED_SPHERE_W = 7
-PACKED_AABOX = 8
-PACKED_BASE_KIND = {PACKED_SPHERE_W: SPHERE, PACKED_AABOX: CUBE}
 
-# Packed-table chunk width: primitives are laid out in lanes of the VPU
-# (8x128); one chunk = one 128-lane sweep step in the Pallas kernel.
-PACK_CHUNK = 128
+def _static():
+    """A SceneTables field that jit treats as static metadata (not traced)."""
+    return dataclasses.field(metadata={"static": True})
 
 
-@struct.dataclass
-class PackedPrims:
-    """Unified prim table for the Pallas sweep kernel (ops/pallas_intersect).
-
-    Every *instance* — analytic node or (mesh-instance, triangle) pair — is
-    one column.  Columns are grouped into 128-wide chunks; each chunk holds
-    a single primitive kind, clustered by recursive SAH bisection (see
-    _sah_chunk_order; "morton" packing remains as a knob) so chunk AABBs
-    stay tight and block-level culling is effective.  This is the
-    TPU-native analogue of the reference's kd-tree leaves
-    (src/kdtree/leaf.rs:89-231): spatial clustering into fixed-width SIMD
-    leaves instead of a divergent tree descent.
-
-    Rows of `f32` (21 x NCOL), by packed kind:
-      general analytic (SPHERE/PLANE/CUBE/CYLINDER/CONE/TORUS):
-        0..11  world->local affine (3x4, row-major); 12..13 torus radii
-      MESH (world-space triangles — the instance transform is baked into
-      the vertices at pack time, so the kernel needs no per-pair affine):
-        0..2  vertex a;  3..5  e1 = a - b;  6..8  e2 = a - c
-      PACKED_SPHERE_W:
-        0..2 world center; 3 radius^2; 4 scale s (for the self-eps raise)
-      PACKED_AABOX:
-        0..2 world box min; 3..5 box max (both inflated by the containment
-        slack eps*extent, cube.rs:70-82's 0.5+EPSILON in world units);
-        6..8 per-world-axis inverse scale (for the self-eps raise)
-    Rows of `ids` (2 x NCOL): node id, triangle id (-1 = padding/analytic).
-    """
-
-    f32: jnp.ndarray        # [21, NCOL] float
-    ids: jnp.ndarray        # [2, NCOL] int32
-    chunk_kind: jnp.ndarray  # [Nc] int32 primitive kind of each chunk
-    chunk_min: jnp.ndarray   # [Nc,3] world AABB over chunk members
-    chunk_max: jnp.ndarray   # [Nc,3]
-    n_chunks: int = struct.field(pytree_node=False)
-    # Static (kind, chunk_start, chunk_count) runs: chunks of one packed
-    # kind are contiguous by construction, so the sweep kernel compiles one
-    # specialized sub-sweep per kind *present in the scene* — no runtime
-    # kind dispatch, and absent kinds (e.g. the big quartic torus path)
-    # cost zero compile time.
-    kind_ranges: tuple = struct.field(pytree_node=False, default=())
-
-
-def _part1by2(x: np.ndarray) -> np.ndarray:
-    """Spread 10 bits to every 3rd bit (Morton interleave helper)."""
-    x = x.astype(np.uint32) & np.uint32(0x3FF)
-    x = (x | (x << 16)) & np.uint32(0x30000FF)
-    x = (x | (x << 8)) & np.uint32(0x300F00F)
-    x = (x | (x << 4)) & np.uint32(0x30C30C3)
-    x = (x | (x << 2)) & np.uint32(0x9249249)
-    return x
-
-
-def _morton_order(amin: np.ndarray, amax: np.ndarray) -> np.ndarray:
-    """Stable spatial sort of AABBs by 30-bit Morton code of their centers."""
-    if amin.shape[0] <= 1:
-        return np.arange(amin.shape[0])
-    from .. import native
-
-    order = native.morton_order(amin, amax)
-    if order is not None:
-        return order
-    c = 0.5 * (amin + amax)
-    lo = c.min(axis=0)
-    span = np.maximum(c.max(axis=0) - lo, 1e-30)
-    q = np.clip((c - lo) / span * 1023.0, 0.0, 1023.0).astype(np.uint32)
-    key = (
-        _part1by2(q[:, 0])
-        | (_part1by2(q[:, 1]) << np.uint32(1))
-        | (_part1by2(q[:, 2]) << np.uint32(2))
-    )
-    return np.argsort(key, kind="stable")
-
-
-def _sah_chunk_order(amin: np.ndarray, amax: np.ndarray,
-                     leaf: int = PACK_CHUNK) -> np.ndarray:
-    """Spatial sort by recursive SAH-at-chunk-granularity bisection.
-
-    The packed table's cull unit is the 128-wide chunk: a ray pays one
-    full [B, 128] sweep step per chunk whose AABB it crosses, so the
-    packer's whole job is minimizing expected chunk crossings.  Morton
-    slicing (round 2-4) makes consecutive-128 runs *locally* ordered but
-    is blind to where the curve jumps; this builder instead does the
-    kd/BVH construction the reference's recursive median build performs
-    (src/kdtree/kdscene.rs:36-66) at chunk granularity: recursively
-    bisect the prim set, choosing the (axis, multiple-of-`leaf` split)
-    that minimizes the surface-area heuristic
-        ceil(k/leaf) * SA(left) + ceil((n-k)/leaf) * SA(right),
-    until segments fit one chunk.  Every split is a multiple of `leaf`,
-    so all chunks except the global last are exactly full — no extra
-    padding lanes vs Morton.  Measured on the castle crop this cuts
-    crossed chunks/block ~25% and per-ray candidate evals accordingly
-    (docs/PERF.md round-5 ledger)."""
-    n = amin.shape[0]
-    if n <= leaf:
-        return np.arange(n)
-    cent = 0.5 * (amin + amax)
-    out: List[np.ndarray] = []
-
-    def area(mn, mx):
-        e = np.maximum(mx - mn, 0.0)
-        return e[:, 0] * e[:, 1] + e[:, 1] * e[:, 2] + e[:, 2] * e[:, 0]
-
-    # Iterative stack (meshes reach 10^5+ prims; Python recursion depth
-    # is O(log n) here but the explicit stack is free and safe).
-    stack = [np.arange(n)]
-    while stack:
-        ids = stack.pop()
-        m = ids.shape[0]
-        if m <= leaf:
-            out.append(ids)
-            continue
-        best_cost = np.inf
-        best_order = None
-        best_k = leaf
-        ks = np.arange(leaf, m, leaf)
-        for axis in range(3):
-            order = ids[np.argsort(cent[ids, axis], kind="stable")]
-            pmin = np.minimum.accumulate(amin[order], axis=0)
-            pmax = np.maximum.accumulate(amax[order], axis=0)
-            smin = np.minimum.accumulate(amin[order][::-1], axis=0)[::-1]
-            smax = np.maximum.accumulate(amax[order][::-1], axis=0)[::-1]
-            cost = (np.ceil(ks / leaf) * area(pmin[ks - 1], pmax[ks - 1])
-                    + np.ceil((m - ks) / leaf) * area(smin[ks], smax[ks]))
-            j = int(np.argmin(cost))
-            if cost[j] < best_cost:
-                best_cost = cost[j]
-                best_order = order
-                best_k = int(ks[j])
-        # Push right first so `out` accumulates left-to-right; the
-        # non-multiple remainder always rides the rightmost segment, so
-        # only the group's final chunk is ever padded.
-        stack.append(best_order[best_k:])
-        stack.append(best_order[:best_k])
-    return np.concatenate(out)
-
-
-def _uniform_similarity(t3):
-    """[N] bool: forward 3x3 is rotation x uniform scale; and [N] scale."""
-    M = t3[:, :, :3]
-    G = np.einsum("nij,nkj->nik", M, M)               # M M^T
-    s2 = np.einsum("nii->n", G) / 3.0
-    dev = np.abs(G - s2[:, None, None] * np.eye(3)).max(axis=(1, 2))
-    return dev <= 1e-7 * np.maximum(s2, 1e-30), np.sqrt(np.maximum(s2, 0.0))
-
-
-def _axis_aligned(t3):
-    """[N] bool: forward 3x3 is signed-permutation x per-axis scale; and
-    [N,3] per-world-axis scale (row max-abs).
-
-    Extremely anisotropic boxes (aspect > 128) are excluded: the local
-    6-face fold amplifies f32 ray error by the inverse thin-axis scale, so
-    the world-space slab and the local fold disagree on grazing rays there
-    — such boxes stay on the (flat-path-identical) general cube branch."""
-    A = np.abs(t3[:, :, :3])
-    rmax = A.max(axis=2)
-    cmax = A.max(axis=1)
-    ok = (
-        ((A.sum(axis=2) - rmax) <= 1e-7 * np.maximum(rmax, 1e-30)).all(axis=1)
-        & ((A.sum(axis=1) - cmax) <= 1e-7 * np.maximum(cmax, 1e-30)).all(axis=1)
-        & (rmax.max(axis=1) <= 128.0 * np.maximum(rmax.min(axis=1), 1e-30))
-    )
-    return ok, rmax
-
-
-def _build_packed(
-    groups, trans, inv, aabb_min, aabb_max,
-    pair_node, pair_tri, pair_amin, pair_amax, pair_world,
-    tri_abc, prim_params, packing: str = "sah",
-):
-    """Assemble PackedPrims (numpy) from the flat node/pair tables."""
-    spatial_order = (_sah_chunk_order if packing == "sah" else _morton_order)
-    f_cols: List[np.ndarray] = []   # per-kind [k,21]
-    id_cols: List[np.ndarray] = []  # per-kind [k,2]
-    a_cols_min: List[np.ndarray] = []
-    a_cols_max: List[np.ndarray] = []
-    kinds: List[int] = []
-
-    def inflate(amin, amax):
-        """Scale-aware conservative chunk-AABB inflation: the candidate
-        tests accept hits up to (0.5 + EPSILON) in *local* units, so the
-        cull margin must grow with the node transform (extent-relative),
-        plus a position-relative term for f32 rounding of the corners."""
-        ext = amax - amin
-        pad = 1e-5 * ext + 1e-6 * np.maximum(np.abs(amin), np.abs(amax)) + 1e-7
-        return amin - pad, amax + pad
-
-    def add_group(kind, f, ids, amin, amax):
-        k = f.shape[0]
-        pad = -(-k // PACK_CHUNK) * PACK_CHUNK - k
-        if pad:
-            f = np.concatenate([f, np.zeros((pad, f.shape[1]))], axis=0)
-            ids = np.concatenate([ids, np.full((pad, 2), -1, np.int64)], axis=0)
-            amin = np.concatenate([amin, np.full((pad, 3), 1e30)], axis=0)
-            amax = np.concatenate([amax, np.full((pad, 3), -1e30)], axis=0)
-        f_cols.append(f)
-        id_cols.append(ids)
-        amin, amax = inflate(amin, amax)
-        a_cols_min.append(amin)
-        a_cols_max.append(amax)
-        kinds.extend([kind] * ((k + pad) // PACK_CHUNK))
-
-    def add_general(kind, order):
-        count = order.shape[0]
-        if count == 0:
-            return
-        extra = np.zeros((count, 9))
-        extra[:, 0:2] = prim_params[order]  # torus radii in rows 12..13
-        f = np.concatenate([inv[order].reshape(-1, 12), extra], axis=1)
-        ids = np.stack([order, np.full(count, -1)], axis=1)
-        add_group(kind, f, ids, aabb_min[order], aabb_max[order])
-
-    for kind, start, count in groups:
-        if count == 0:
-            continue
-        if kind == MESH:
-            n_pairs = len(pair_node)
-            if n_pairs == 0:
-                continue
-            pn = np.asarray(pair_node)
-            pt = np.asarray(pair_tri)
-            amin = np.asarray(pair_amin)
-            amax = np.asarray(pair_amax)
-            order = spatial_order(amin, amax)
-            pn, pt = pn[order], pt[order]
-            # Unit-triangle affine: rows map world points into the
-            # (beta, gamma, w) frame where the triangle is beta,gamma >= 0,
-            # beta+gamma <= 1, w == 0 (p = a + beta*e1 + gamma*e2 + w*n).
-            # The kernel then computes o' and d' as [B,4] x [4,C] MXU
-            # matmuls (rows 0..3 / 4..7 / 8..11 are exactly the three
-            # [4,C] matrices) and the VPU only does the t = -o'w/d'w
-            # ratio + barycentric compares — same accepted-hit semantics
-            # as the reference's Cramer solve (triangle.rs:39-80).
-            wv = pair_world[order]                     # [k,3,3]
-            k = len(pn)
-            a = wv[:, 0]
-            e1 = wv[:, 1] - a
-            e2 = wv[:, 2] - a
-            nrm = np.cross(e1, e2)
-            A = np.stack([e1, e2, nrm], axis=2)        # columns
-            det = np.linalg.det(A)
-            good = np.abs(det) > 1e-30
-            Minv = np.zeros((k, 3, 3))
-            if good.any():
-                Minv[good] = np.linalg.inv(A[good])
-            trans = -np.einsum("kij,kj->ki", Minv, a)
-            f = np.concatenate(
-                [Minv[:, 0, :], trans[:, 0:1],
-                 Minv[:, 1, :], trans[:, 1:2],
-                 Minv[:, 2, :], trans[:, 2:3],
-                 np.zeros((k, 9))],
-                axis=1,
-            )
-            ids = np.stack([pn, pt], axis=1)
-            add_group(MESH, f, ids, amin[order], amax[order])
-        else:
-            idx = np.arange(start, start + count)
-            # Specialized-kind subsets are selected FIRST and each subset
-            # is spatially ordered independently: ordering the union and
-            # then filtering would leave both subsets' chunk boundaries
-            # misaligned with the SAH splits.
-            sub_order = lambda ids: ids[spatial_order(
-                aabb_min[ids], aabb_max[ids])]
-            if kind == SPHERE:
-                uni, s = _uniform_similarity(trans)
-                spec = sub_order(idx[uni[idx]])
-                rest = sub_order(idx[~uni[idx]])
-                if spec.size:
-                    f = np.zeros((spec.size, 21))
-                    f[:, 0:3] = trans[spec][:, :, 3]   # world center
-                    f[:, 3] = s[spec] ** 2             # radius^2
-                    f[:, 4] = s[spec]                  # scale (self-eps)
-                    ids = np.stack([spec, np.full(spec.size, -1)], axis=1)
-                    add_group(PACKED_SPHERE_W, f, ids,
-                              aabb_min[spec], aabb_max[spec])
-                add_general(SPHERE, rest)
-            elif kind == CUBE:
-                aa, srow = _axis_aligned(trans)
-                spec = sub_order(idx[aa[idx]])
-                rest = sub_order(idx[~aa[idx]])
-                if spec.size:
-                    # Containment slack: local 0.5+EPSILON maps to a world
-                    # pad of EPSILON * extent per axis (unit cube side 1).
-                    ext = aabb_max[spec] - aabb_min[spec]
-                    pad = 1e-5 * ext
-                    f = np.zeros((spec.size, 21))
-                    f[:, 0:3] = aabb_min[spec] - pad
-                    f[:, 3:6] = aabb_max[spec] + pad
-                    f[:, 6:9] = 1.0 / np.maximum(srow[spec], 1e-30)
-                    ids = np.stack([spec, np.full(spec.size, -1)], axis=1)
-                    add_group(PACKED_AABOX, f, ids,
-                              aabb_min[spec], aabb_max[spec])
-                add_general(CUBE, rest)
-            else:
-                add_general(kind, sub_order(idx))
-
-    if not kinds:  # empty scene: one all-padding chunk
-        kinds = [SPHERE]
-        f_cols = [np.zeros((PACK_CHUNK, 21))]
-        id_cols = [np.full((PACK_CHUNK, 2), -1, np.int64)]
-        a_cols_min = [np.full((PACK_CHUNK, 3), 1e30)]
-        a_cols_max = [np.full((PACK_CHUNK, 3), -1e30)]
-
-    f_all = np.concatenate(f_cols, axis=0)        # [NCOL,21]
-    id_all = np.concatenate(id_cols, axis=0)      # [NCOL,2]
-    amin_all = np.concatenate(a_cols_min, axis=0)
-    amax_all = np.concatenate(a_cols_max, axis=0)
-    n_chunks = f_all.shape[0] // PACK_CHUNK
-    chunk_min = amin_all.reshape(n_chunks, PACK_CHUNK, 3).min(axis=1)
-    chunk_max = amax_all.reshape(n_chunks, PACK_CHUNK, 3).max(axis=1)
-    # Contiguous same-kind chunk runs (static metadata for the kernel).
-    ranges = []
-    for k in kinds:
-        if ranges and ranges[-1][0] == k:
-            ranges[-1][2] += 1
-        else:
-            ranges.append([k, sum(r[2] for r in ranges), 1])
-    return (
-        f_all.T, id_all.T.astype(np.int32),
-        np.asarray(kinds, np.int32), chunk_min, chunk_max, n_chunks,
-        tuple(tuple(r) for r in ranges),
-    )
-
-
-@struct.dataclass
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
 class SceneTables:
     # --- per-node (grouped by kind) ---
     trans: jnp.ndarray        # [N,3,4] local->world
@@ -424,21 +88,19 @@ class SceneTables:
     tex_meta: jnp.ndarray      # [K,3] int32 (offset, width, height)
     nm_data: jnp.ndarray       # [Pnm,3] uint8 normal-map texels
     nm_meta: jnp.ndarray       # [Knm,3] int32
-    # --- packed prim table for the Pallas sweep kernel ---
-    packed: "PackedPrims"
     # --- static metadata (not traced) ---
-    groups: Tuple[Tuple[int, int, int], ...] = struct.field(pytree_node=False)
-    fn_textures: Tuple[Callable, ...] = struct.field(pytree_node=False)
-    n_lights: int = struct.field(pytree_node=False)
+    groups: Tuple[Tuple[int, int, int], ...] = _static()
+    fn_textures: Tuple[Callable, ...] = _static()
+    n_lights: int = _static()
     # Per-light static flag: parallelogram area light (soft shadows)?
-    area_flags: Tuple[bool, ...] = struct.field(pytree_node=False)
+    area_flags: Tuple[bool, ...] = _static()
     # Does any material reflect/refract?  (statically gates bounce rounds)
-    any_reflective: bool = struct.field(pytree_node=False)
-    any_refractive: bool = struct.field(pytree_node=False)
+    any_reflective: bool = _static()
+    any_refractive: bool = _static()
     # Does any material use glossy reflection / textures / normal maps?
-    any_glossy: bool = struct.field(pytree_node=False)
-    any_image_tex: bool = struct.field(pytree_node=False)
-    any_normal_map: bool = struct.field(pytree_node=False)
+    any_glossy: bool = _static()
+    any_image_tex: bool = _static()
+    any_normal_map: bool = _static()
 
     @property
     def n_nodes(self) -> int:
@@ -447,6 +109,10 @@ class SceneTables:
     @property
     def n_pairs(self) -> int:
         return self.pair_node.shape[0]
+
+    def replace(self, **updates) -> "SceneTables":
+        """A copy with the given fields replaced (e.g. swapped parameters)."""
+        return dataclasses.replace(self, **updates)
 
     def group(self, kind: int) -> Tuple[int, int]:
         for k, start, count in self.groups:
@@ -484,8 +150,7 @@ def _world_aabb(trans4, lmin, lmax):
     return world.min(axis=0), world.max(axis=0)
 
 
-def flatten_scene(scene: Scene, dtype=jnp.float32,
-                  packing: str = "sah") -> SceneTables:
+def flatten_scene(scene: Scene, dtype=jnp.float32) -> SceneTables:
     flat: List[_FlatNode] = []
 
     # Triangle soup accumulators (numpy blocks; mesh data shared between
@@ -751,13 +416,11 @@ def flatten_scene(scene: Scene, dtype=jnp.float32,
         world = np.einsum("pij,pkj->pki", rot, verts3) + off[:, None, :]
         pair_amin = world.min(axis=1)
         pair_amax = world.max(axis=1)
-        pair_world = world
     else:
         pair_node = np.zeros((0,), np.int64)
         pair_tri = np.zeros((0,), np.int64)
         pair_amin = np.zeros((0, 3))
         pair_amax = np.zeros((0, 3))
-        pair_world = np.zeros((0, 3, 3))
 
     # Lights.
     L = max(len(scene.lights), 1)
@@ -794,25 +457,9 @@ def flatten_scene(scene: Scene, dtype=jnp.float32,
     tex_data, tex_meta = build_atlas(image_textures)
     nm_data, nm_meta = build_atlas(normal_maps)
 
-    # Packed Morton-chunked prim table for the Pallas sweep.
-    tri_abc = np.concatenate(
-        [tri["tri_a"], tri["tri_b"], tri["tri_c"]], axis=1
-    )
-    pk_f32, pk_ids, pk_kind, pk_cmin, pk_cmax, pk_nc, pk_ranges = _build_packed(
-        groups, trans, inv, aabb_min, aabb_max,
-        pair_node, pair_tri, pair_amin, pair_amax, pair_world,
-        tri_abc, prim_params, packing=packing,
-    )
-
     f = lambda x: jnp.asarray(x, dtype=dtype)
     i32 = lambda x: jnp.asarray(x, dtype=jnp.int32)
     b8 = lambda x: jnp.asarray(x, dtype=jnp.bool_)
-
-    packed = PackedPrims(
-        f32=f(pk_f32), ids=i32(pk_ids), chunk_kind=i32(pk_kind),
-        chunk_min=f(pk_cmin), chunk_max=f(pk_cmax), n_chunks=pk_nc,
-        kind_ranges=pk_ranges,
-    )
 
     return SceneTables(
         trans=f(trans), inv=f(inv), normal_mat=f(normal_mat),
@@ -840,7 +487,6 @@ def flatten_scene(scene: Scene, dtype=jnp.float32,
         ambient=f(scene.ambient),
         tex_data=jnp.asarray(tex_data, jnp.uint8), tex_meta=i32(tex_meta),
         nm_data=jnp.asarray(nm_data, jnp.uint8), nm_meta=i32(nm_meta),
-        packed=packed,
         groups=tuple(groups),
         fn_textures=tuple(fn_textures),
         n_lights=len(scene.lights),
@@ -860,9 +506,9 @@ def flatten_scene(scene: Scene, dtype=jnp.float32,
 # ---------------------------------------------------------------------------
 # Fused shading records — built with jnp ops from the traced tables so that
 # reverse-mode AD flows to the material/light parameters, then gathered by
-# ONE row gather per ray (TPU gathers cost ~4 ms per 256k-row gather; the
-# fused record is the difference between ~11 gathers and 1 in
-# hit_detail/shade).
+# ONE row gather per ray (the fused record is the difference between ~11
+# gathers and 1 in hit_detail/shade; what a gather costs on the GPU is not
+# measured yet).
 # ---------------------------------------------------------------------------
 
 # node_record column layout:

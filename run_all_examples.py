@@ -4,7 +4,7 @@ Travis CI loop, .travis.yml:16-21): smoke renders at low sample count.
 
 Usage:
     python run_all_examples.py [--samples N] [--scale F] [--out DIR]
-                               [--only name1,name2] [--accel pallas|beam|flat]
+                               [--only name1,name2] [--accel beam|flat]
 
 Renders each scene at `scale` x native resolution and saves PNGs.
 SAMPLES defaults to 2 like CI.
@@ -25,9 +25,8 @@ def main():
     ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--out", default="render_out")
     ap.add_argument("--only", default=None)
-    # "pallas" auto-dispatches: Mosaic kernel on TPU, beam/flat
-    # fallback (by scene size) elsewhere — see ops/intersect.py.
-    ap.add_argument("--accel", default="pallas")
+    # Default: the library's default sweep (see RenderConfig.accel).
+    ap.add_argument("--accel", default=RenderConfig.accel)
     ap.add_argument("--tile", type=int, default=128)
     args = ap.parse_args()
 

@@ -1,9 +1,9 @@
 """Native host-runtime components vs their Python fallbacks.
 
 The reference's host runtime is native (tobj OBJ parsing, the `image` PNG
-codec, kd-tree partitioning in Rust); native/portrayer_native.cpp holds the
-TPU framework's equivalents.  These tests pin the native paths to the
-Python reference implementations (the equivalence-oracle pattern of
+codec in Rust); native/portrayer_native.cpp holds this framework's
+equivalents.  These tests pin the native paths to the Python reference
+implementations (the equivalence-oracle pattern of
 src/kdtree/kdmesh.rs:99-166)."""
 
 import io
@@ -14,7 +14,6 @@ import pytest
 
 from portrayer_tpu import native
 from portrayer_tpu.scene.mesh import MeshData
-from portrayer_tpu.scene import flatten as fl
 
 ASSETS = os.environ.get("PORTRAYER_ASSETS", "/root/reference/assets")
 
@@ -37,28 +36,6 @@ def test_obj_native_matches_python(name):
     np.testing.assert_allclose(nat.tex_coords, py.tex_coords)
     np.testing.assert_allclose(nat.bounds_min, py.bounds_min)
     np.testing.assert_allclose(nat.bounds_max, py.bounds_max)
-
-
-@needs_native
-def test_morton_native_matches_python():
-    rng = np.random.default_rng(7)
-    n = 4097
-    amin = rng.uniform(-100, 100, (n, 3))
-    amax = amin + rng.uniform(0, 10, (n, 3))
-    nat = native.morton_order(amin, amax)
-
-    # Python reference (the fallback body of flatten._morton_order).
-    c = 0.5 * (amin + amax)
-    lo = c.min(axis=0)
-    span = np.maximum(c.max(axis=0) - lo, 1e-30)
-    q = np.clip((c - lo) / span * 1023.0, 0.0, 1023.0).astype(np.uint32)
-    key = (
-        fl._part1by2(q[:, 0])
-        | (fl._part1by2(q[:, 1]) << np.uint32(1))
-        | (fl._part1by2(q[:, 2]) << np.uint32(2))
-    )
-    py = np.argsort(key, kind="stable")
-    np.testing.assert_array_equal(nat, py)
 
 
 @needs_native

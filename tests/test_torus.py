@@ -133,8 +133,8 @@ class TestTorus:
         assert np.isclose(float(hit.t[0]), 4.5, atol=1e-2)
 
     def test_pallas_matches_flat(self):
-        from portrayer_tpu.ops.pallas_intersect import intersect_scene_pallas
-
+        """The fast sweep (beam, forced on) agrees with the flat sweep on
+        the quartic."""
         st = torus_scene(1.0, 0.3)
         rng = np.random.default_rng(2)
         o = jnp.asarray(np.stack([
@@ -142,9 +142,9 @@ class TestTorus:
             np.full(256, 4.0)], axis=1), jnp.float32)
         d = jnp.asarray(np.tile([0, 0, -1.0], (256, 1)), jnp.float32)
         flat = intersect_scene(o, d, 1e-5, jnp.inf, st, CFG)
-        pal = intersect_scene_pallas(
+        pal = intersect_scene(
             o, d, 1e-5, jnp.inf, st,
-            RenderConfig(accel="pallas", pallas_interpret=True),
+            RenderConfig(accel="beam", beam_min_prims=1, warp_size=64),
         )
         agree = np.mean(np.asarray(flat.hit) == np.asarray(pal.hit))
         assert agree > 0.99  # grazing quartics may flip at silhouettes
